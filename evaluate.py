@@ -16,12 +16,12 @@ import sys
 
 import jax
 
-from desire_tpu.config import DesireConfig, add_config_flags, config_from_args
-from desire_tpu.data.loader import SDDLoader
-from desire_tpu.eval.sampler import evaluate
-from desire_tpu.models.desire import init_desire
-from desire_tpu.train import checkpoint as ckpt_mod
-from desire_tpu.train.state import create_train_state
+from desire.config import DesireConfig, add_config_flags, config_from_args
+from desire.data.loader import SDDLoader
+from desire.eval.sampler import evaluate
+from desire.models.desire import init_desire
+from desire.train import checkpoint as ckpt_mod
+from desire.train.state import create_train_state
 
 
 # model-geometry fields: restored from the checkpoint config unless the flag
@@ -33,7 +33,7 @@ _GEOMETRY_FIELDS = ckpt_mod.GEOMETRY_FIELDS
 
 
 def main(argv=None):
-    from desire_tpu.utils.logging import enable_compile_cache
+    from desire.utils.logging import enable_compile_cache
     enable_compile_cache()
     parser = argparse.ArgumentParser(description=__doc__)
     add_config_flags(parser)
@@ -143,7 +143,7 @@ def main(argv=None):
         params = got[0].params
 
     if args.dump:
-        from desire_tpu.eval.sampler import dump_trajectories
+        from desire.eval.sampler import dump_trajectories
         n = dump_trajectories(params, cfg, loader, args.dump,
                               num_batches=args.dump_batches)
         print(json.dumps({"dumped": args.dump, "windows": n}))
@@ -158,7 +158,7 @@ def main(argv=None):
         # post-hoc sigma-temperature: fit on a TRAIN-video validation slice
         # (never the split being reported), then report exact corrected
         # coverage at that tau next to the raw numbers
-        from desire_tpu.eval.sampler import fit_sigma_temperature
+        from desire.eval.sampler import fit_sigma_temperature
         if cfg.holdout == "none":
             # no disjoint split exists — fitting here would be in-sample on
             # the exact data being reported; skip and say so (ADVICE r4)

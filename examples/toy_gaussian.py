@@ -20,10 +20,10 @@ import optax
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from desire_tpu.config import DesireConfig  # noqa: E402
-from desire_tpu.data.loader import SDDLoader  # noqa: E402
-from desire_tpu.models import layers as L  # noqa: E402
-from desire_tpu.models import losses  # noqa: E402
+from desire.config import DesireConfig  # noqa: E402
+from desire.data.loader import SDDLoader  # noqa: E402
+from desire.models import layers as L  # noqa: E402
+from desire.models import losses  # noqa: E402
 
 
 def main(argv=None):

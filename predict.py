@@ -26,9 +26,9 @@ import sys
 
 import numpy as np
 
-from desire_tpu.data.loader import _native_or_python_reader
-from desire_tpu.data.windows import build_video_index, materialize_window
-from desire_tpu.serve import Predictor, StreamServer, forecast_to_json
+from desire.data.loader import _native_or_python_reader
+from desire.data.windows import build_video_index, materialize_window
+from desire.serve import Predictor, StreamServer, forecast_to_json
 
 
 def file_mode(args, pred: Predictor):
@@ -59,7 +59,7 @@ def file_mode(args, pred: Predictor):
                 cfg.scene_image_source == "occupancy":
             # the training-time scene raster for this video (the aggregate
             # occupancy prior the loader builds; loader._video_raster)
-            from desire_tpu.data.windows import occupancy_prior
+            from desire.data.windows import occupancy_prior
             scene_img = occupancy_prior(v, cfg.scene_grid)
         out = pred.predict(np.swapaxes(xy, 0, 1) * scale,
                            np.swapaxes(mask, 0, 1), wids, scale=scale,

@@ -17,8 +17,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from desire_tpu.config import DesireConfig, add_config_flags, config_from_args  # noqa: E402
-from desire_tpu.data.loader import SDDLoader  # noqa: E402
+from desire.config import DesireConfig, add_config_flags, config_from_args  # noqa: E402
+from desire.data.loader import SDDLoader  # noqa: E402
 
 
 def main(argv=None):

@@ -7,15 +7,19 @@ Prints one JSON line with p50/p95 per-dispatch latency and windows/sec at
 flagship shapes (A=60 agents, K=20, 8 obs / 12 pred). Run with a trained
 checkpoint (--save_dir) or --random_params for a shape-only measurement.
 
-bench.py measures the jitted forward alone (sync-fetched device time); the
-delta between the two is the host-side serving overhead a deployment
+bench.py measures the jitted forward alone (blocked on the device result);
+the delta between the two is the host-side serving overhead a deployment
 actually pays per request.
 """
 
 import argparse
 import json
+import os
+import sys
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None):
@@ -32,9 +36,9 @@ def main(argv=None):
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    from desire_tpu.config import DesireConfig
-    from desire_tpu.models.desire import init_desire
-    from desire_tpu.serve import Predictor
+    from desire.config import DesireConfig
+    from desire.models.desire import init_desire
+    from desire.serve import Predictor
 
     if args.random_params or not args.save_dir:
         cfg = DesireConfig(max_num_obj=args.agents)

@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Summarize a jax.profiler Chrome trace (vm.trace.json.gz): total device
-time per XLA op, sorted. This is how the round-4 forward trace was read
-(docs/traces/r4_fwd_trace.json.gz -> fused IOC kernel = 82% of the step).
+"""Summarize a jax.profiler Chrome trace (*.trace.json.gz): total GPU
+device time per kernel, sorted, summed over the device's streams.
 
-  python scripts/trace_report.py /tmp/r4_profile [n_top]
+  python scripts/trace_report.py PROFILE_DIR_OR_TRACE [n_top]
 
-The TPU device track shows one opaque custom call per Pallas kernel; use
-the DESIRE_IOC_ABLATE bench knob for the in-kernel stage decomposition.
+A Pallas kernel appears under the `name` its pallas_call gives it (for
+example `social_attention`); XLA's fusions under their fusion names.
 """
 
 import collections
@@ -26,7 +25,7 @@ def load(path):
 
 
 def main():
-    ev, path = load(sys.argv[1] if len(sys.argv) > 1 else "/tmp/r4_profile")
+    ev, path = load(sys.argv[1])
     n_top = int(sys.argv[2]) if len(sys.argv) > 2 else 25
     pids, tids = {}, {}
     for e in ev:
@@ -34,8 +33,9 @@ def main():
             pids[e["pid"]] = e["args"].get("name", "")
         if e.get("ph") == "M" and e.get("name") == "thread_name":
             tids[(e["pid"], e["tid"])] = e["args"].get("name", "")
-    dev = [p for p, name in pids.items() if "TPU" in (name or "")]
-    assert dev, f"no TPU process in {path}: {pids}"
+    dev = [p for p, name in pids.items() if "/device:GPU" in (name or "")]
+    if not dev:
+        raise SystemExit(f"no GPU device process in {path}: {pids}")
     cnt, dur = collections.Counter(), collections.Counter()
     for e in ev:
         if e.get("ph") == "X" and e.get("pid") in dev:

@@ -29,12 +29,12 @@ def main():
 
     import numpy as np
 
-    from desire_tpu.data.loader import SDDLoader
-    from desire_tpu.models.desire import init_desire
-    from desire_tpu.parallel import mesh as mesh_mod
-    from desire_tpu.train import trainer
-    from desire_tpu.train.checkpoint import _replicated_to_host
-    from desire_tpu.train.state import create_train_state
+    from desire.data.loader import SDDLoader
+    from desire.models.desire import init_desire
+    from desire.parallel import mesh as mesh_mod
+    from desire.train import trainer
+    from desire.train.checkpoint import _replicated_to_host
+    from desire.train.state import create_train_state
     from tests.test_multiprocess import mp_cfg
 
     cfg = mp_cfg(data_dir)

@@ -6,7 +6,7 @@ import argparse
 import numpy as np
 import pytest
 
-from desire_tpu import compat
+from desire import compat
 
 
 def _reference_args(**kw):

@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from desire_tpu.config import DesireConfig
-from desire_tpu.data import loader as loader_mod
-from desire_tpu.data import preprocess, windows
+from desire.config import DesireConfig
+from desire.data import loader as loader_mod
+from desire.data import preprocess, windows
 
 
 def _write_micro_csv(path, records):
@@ -147,7 +147,7 @@ def test_video_index_cache_roundtrip(micro_tree, tmp_path, monkeypatch):
     start must serve identical indices from cache without re-reading the
     CSVs, and a touched CSV must invalidate its entry (the reference's
     trajectories.cpkl went stale silently — utils/data_loader.py:52-64)."""
-    from desire_tpu.data import loader as L
+    from desire.data import loader as L
     monkeypatch.setenv("DESIRE_CACHE_DIR", str(tmp_path / "cache"))
     cfg = DesireConfig(protocol="paper", obs_len=2, pred_len=1, subsample=2,
                        batch_size=2, max_num_obj=4, window_hop=1,
@@ -251,7 +251,7 @@ def test_scene_filter_and_missing_dir(micro_tree, tmp_path):
 
 
 def test_native_parser_matches_python_if_built(micro_tree):
-    from desire_tpu.data.native import fast_csv
+    from desire.data.native import fast_csv
     if not fast_csv.available():
         pytest.skip("libfast_csv.so not built")
     path = os.path.join(micro_tree, "sceneA/video0/annotations_processed.csv")

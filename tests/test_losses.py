@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from desire_tpu.models import losses
+from desire.models import losses
 
 
 def _np_bivariate_pdf(x, y, mux, muy, sx, sy, rho):

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from desire_tpu.config import DesireConfig
-from desire_tpu.models import desire, layers, losses, scf, sgm
+from desire.config import DesireConfig
+from desire.models import desire, layers, losses, scf, sgm
 
 
 def tiny_cfg(**kw):
@@ -310,7 +310,7 @@ def test_ranking_ce_cannot_move_hypotheses():
     regression: CE leaked through scores -> pooled features -> refined
     positions and dragged hypotheses ~26 px off their SGM oracle the moment
     the CE target became sharp enough to train."""
-    from desire_tpu.models import ioc as ioc_mod
+    from desire.models import ioc as ioc_mod
 
     cfg = tiny_cfg()
     params = desire.init_desire(jax.random.PRNGKey(0), cfg)

@@ -18,7 +18,7 @@ import jax
 import numpy as np
 import pytest
 
-from desire_tpu.config import DesireConfig
+from desire.config import DesireConfig
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -87,10 +87,10 @@ def test_two_process_training_matches_single_process(mp_tree, tmp_path):
                                results[1]["fingerprint"], rtol=1e-6)
 
     # ...and they match a single-process, unsharded run on the same stream
-    from desire_tpu.data.loader import SDDLoader
-    from desire_tpu.models.desire import init_desire
-    from desire_tpu.train import trainer
-    from desire_tpu.train.state import create_train_state
+    from desire.data.loader import SDDLoader
+    from desire.models.desire import init_desire
+    from desire.train import trainer
+    from desire.train.state import create_train_state
 
     cfg = mp_cfg(mp_tree)
     loader = SDDLoader(cfg)

@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from desire_tpu.config import DesireConfig
-from desire_tpu.models.desire import init_desire
-from desire_tpu.parallel import mesh as mesh_mod
-from desire_tpu.train import trainer
-from desire_tpu.train.state import create_train_state
+from desire.config import DesireConfig
+from desire.models.desire import init_desire
+from desire.parallel import mesh as mesh_mod
+from desire.train import trainer
+from desire.train.state import create_train_state
 
 
 def small_cfg(**kw):
@@ -80,7 +80,7 @@ def test_sharded_grads_match_single_device_tight():
     """Raw grads (pre-Adam) under dp+k sharding vs one device, at tight
     tolerance — the discriminating collective-correctness check (the
     post-Adam comparison above is loosened by Adam's normalized update)."""
-    from desire_tpu.models import desire
+    from desire.models import desire
 
     cfg = small_cfg()
     xy, mask, ids = _toy(cfg)
@@ -151,3 +151,75 @@ def test_graft_entry_single_chip():
 def test_graft_entry_multichip_dryrun():
     import __graft_entry__ as ge
     ge.dryrun_multichip(8)
+
+
+@pytest.mark.parametrize("data,k", [(8, 1), (2, 4), (1, 8)])
+def test_sharded_train_step_matches_single_device(data, k):
+    """Loss and gradient norm of one train step agree between one device
+    and each (data, k) mesh shape (k shards the hypothesis lanes)."""
+    cfg = small_cfg(num_samples=8)
+    xy, mask, ids = _toy(cfg)
+    s1 = create_train_state(cfg, init_desire(jax.random.PRNGKey(0), cfg), 10)
+    _, m1 = trainer.make_train_step(cfg, 10)(s1, xy, mask, ids)
+    mesh = mesh_mod.make_mesh(data, k)
+    sh = mesh_mod.batch_sharding(mesh)
+    s2 = create_train_state(cfg, init_desire(jax.random.PRNGKey(0), cfg), 10)
+    _, m2 = trainer.make_train_step(cfg, 10, mesh=mesh)(
+        s2, *jax.device_put((xy, mask, ids), sh))
+    np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(m1["grad_norm"]),
+                               float(m2["grad_norm"]), rtol=1e-3)
+
+
+@pytest.mark.parametrize("data,k", [(8, 1), (4, 2), (2, 4), (1, 8)])
+def test_sharded_inference_matches_single_device(data, k):
+    """The jitted inference forward under each (data, k) mesh draws the
+    same lanes and refines them to the same trajectories as one device."""
+    cfg = small_cfg(num_samples=8)
+    xy, mask, ids = _toy(cfg, key=3)
+    params = init_desire(jax.random.PRNGKey(1), cfg)
+    key = jax.random.PRNGKey(5)
+    one = trainer.make_eval_forward(cfg)(params, xy, mask, ids, key)
+    mesh = mesh_mod.make_mesh(data, k)
+    sh = mesh_mod.batch_sharding(mesh)
+    out = trainer.make_eval_forward(cfg, mesh=mesh)(
+        params, *jax.device_put((xy, mask, ids), sh), key)
+    for name in ("refined_traj", "scores", "sgm_traj"):
+        np.testing.assert_allclose(np.asarray(out[name]),
+                                   np.asarray(one[name]), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_sgm_sampler_shards_lanes_under_a_mesh():
+    """The SGM sampler traced under a (data, k) mesh lays its K-lane
+    outputs out over 'k' (the shard hints take effect) and draws the same
+    hypotheses as without a mesh."""
+    from desire.models import sgm
+
+    cfg = small_cfg(num_samples=8)
+    params = init_desire(jax.random.PRNGKey(0), cfg)["sgm"]
+    n = cfg.batch_size * cfg.max_num_obj
+    obs = jax.random.uniform(jax.random.PRNGKey(2), (n, cfg.obs_len, 2))
+    obs_mask = jnp.ones((n, cfg.obs_len))
+    key = jax.random.PRNGKey(4)
+
+    def fn(p, o, m, key):
+        out = sgm.sgm_forward(p, cfg, o, m, key=key, train=False)
+        return out["traj_mu"], out["dec_h"]
+
+    want = jax.jit(fn)(params, obs, obs_mask, key)
+    mesh = mesh_mod.make_mesh(2, 4)
+    got = mesh_mod.under_mesh(mesh, jax.jit(fn))(params, obs, obs_mask, key)
+    assert got[0].sharding.spec[:2] == P("data", "k")
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_make_mesh_keeps_device_order():
+    devs = jax.devices()
+    m = mesh_mod.make_mesh(2, 4, devs)
+    assert [d.id for d in m.devices.ravel()] == [d.id for d in devs]
+    m = mesh_mod.make_mesh(2, 2, devs[4:])
+    assert [d.id for d in m.devices.ravel()] == [d.id for d in devs[4:8]]

@@ -2,7 +2,7 @@
 shapes), StreamServer (rolling frame feed), and the predict.py CLI.
 
 Unlike evaluate.py's harness, nothing here consumes ground-truth futures —
-the contract under test is the module docstring of desire_tpu/serve.py:
+the contract under test is the module docstring of desire/serve.py:
 the unknown future is refined/scored across the full horizon for every
 agent live at the last observed step."""
 
@@ -13,11 +13,11 @@ import jax
 import numpy as np
 import pytest
 
-from desire_tpu.config import DesireConfig
-from desire_tpu.models.desire import init_desire
-from desire_tpu.serve import Predictor, StreamServer, forecast_to_json
-from desire_tpu.train import checkpoint as ckpt_mod
-from desire_tpu.train.state import create_train_state
+from desire.config import DesireConfig
+from desire.models.desire import init_desire
+from desire.serve import Predictor, StreamServer, forecast_to_json
+from desire.train import checkpoint as ckpt_mod
+from desire.train.state import create_train_state
 
 
 def _cfg(**kw):
@@ -139,7 +139,7 @@ def test_stream_server_evicts_stale_agents(pred):
 def test_mesh_sharded_serving_matches_single_device():
     """Scale-out serving: a (data=4, k=2) mesh Predictor returns the same
     forecasts as the unsharded one (same params, same key)."""
-    from desire_tpu.parallel import mesh as mesh_mod
+    from desire.parallel import mesh as mesh_mod
     cfg = _cfg(num_samples=4, mesh_data=4, mesh_k=2)
     params = init_desire(jax.random.PRNGKey(0), cfg)
     mesh = mesh_mod.make_mesh(4, 2)
@@ -162,7 +162,7 @@ def test_mesh_sharded_serving_matches_single_device():
 def _save_checkpoint(tmp_path, cfg):
     params = init_desire(jax.random.PRNGKey(0), cfg)
     state = create_train_state(cfg, params, steps_per_epoch=10)
-    from desire_tpu.data.loader import LoaderState
+    from desire.data.loader import LoaderState
     mgr = ckpt_mod.CheckpointManager(str(tmp_path))
     mgr.save(state, LoaderState(), cfg, wait=True)
     return params

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from desire_tpu.config import DesireConfig
-from desire_tpu.data.loader import SDDLoader
-from desire_tpu.eval import metrics as M
-from desire_tpu.eval.sampler import evaluate, make_sampler
-from desire_tpu.models.desire import init_desire
-from desire_tpu.train import checkpoint as ckpt_mod
-from desire_tpu.train import trainer
-from desire_tpu.train.state import create_train_state
+from desire.config import DesireConfig
+from desire.data.loader import SDDLoader
+from desire.eval import metrics as M
+from desire.eval.sampler import evaluate, make_sampler
+from desire.models.desire import init_desire
+from desire.train import checkpoint as ckpt_mod
+from desire.train import trainer
+from desire.train.state import create_train_state
 
 
 def _micro_dataset(root, frames=90):
@@ -88,7 +88,7 @@ def test_input_norm_speed_balanced_loss():
     agent, where the 1/(speed+floor) scale is the hazard, (2) upweight the
     fast agent relative to the walker (alpha>0 pulls the batch loss toward
     the worse fast-agent term), (3) train end-to-end."""
-    from desire_tpu.models.desire import desire_loss
+    from desire.models.desire import desire_loss
     cfg = micro_cfg("unused", use_ioc=False, use_scf=False, kld_warmup=1,
                     input_norm=True, speed_loss_alpha=1.0)
     params = init_desire(jax.random.PRNGKey(0), cfg)
@@ -138,7 +138,7 @@ def test_pace_head_zero_init_parity_and_trains():
     """pace_range (config.py): at init the zero-init pace head must leave
     the forward EXACTLY at the pace_range=0 composition; training with the
     head must stay finite and learn."""
-    from desire_tpu.models.desire import desire_forward, desire_loss
+    from desire.models.desire import desire_forward, desire_loss
     cfg0 = micro_cfg("unused", use_ioc=False, use_scf=False, kld_warmup=1)
     cfgp = cfg0.replace(pace_range=0.5)
     params = init_desire(jax.random.PRNGKey(0), cfgp)
@@ -180,7 +180,7 @@ def test_pace_lanes_subset():
     lanes move off the vanilla composition — the first K-n lanes must stay
     bitwise at the pace_range=0 trajectories (the oracle-cost bound the
     subset exists for)."""
-    from desire_tpu.models import sgm
+    from desire.models import sgm
     cfg = micro_cfg("unused", use_ioc=False, use_scf=False,
                     pace_range=0.5, pace_lanes=2)
     params = init_desire(jax.random.PRNGKey(0), cfg)
@@ -263,7 +263,7 @@ def test_scene_image_trains_and_changes_forward(env):
     scene_image_channels=1 the loader-attached raster reaches the scene CNN
     (a different raster changes the refined trajectories), the train step
     consumes it, and the eval harness runs end-to-end."""
-    from desire_tpu.models import desire as desire_mod
+    from desire.models import desire as desire_mod
 
     cfg = micro_cfg(env["data_dir"], scene_image_channels=1)
     loader = SDDLoader(cfg, use_native=False)
@@ -328,7 +328,7 @@ def test_final_best_selection_full_split(env, tmp_path):
     # (VERDICT r4 item 2) and logged with its fit grid
     fit = [e for e in events if e["event"] == "rank_blend_fit"]
     assert len(fit) == 1 and "error" not in fit[0], fit
-    from desire_tpu.train.checkpoint import load_config
+    from desire.train.checkpoint import load_config
     best_cfg = load_config(os.path.join(cfg.save_dir, "best"))
     assert best_cfg.rank_blend_fit == fit[0]["blend"] >= 0.0
     assert fit[0]["blends"][int(np.argmin(fit[0]["top1ADE_px"]))] \
@@ -417,7 +417,7 @@ def test_cvae_best_of_k_covers_bimodal_future():
         #                    encoding learns this fixture slightly slower
         xy, mask, ids = _bimodal_batch(jax.random.PRNGKey(100 + i))
         state, m = step_fn(state, xy, mask, ids)
-    from desire_tpu.models.desire import desire_forward
+    from desire.models.desire import desire_forward
     xy, mask, ids = _bimodal_batch(jax.random.PRNGKey(999))
     out = jax.jit(lambda p: desire_forward(
         p, cfg, xy, mask, ids, key=jax.random.PRNGKey(7), train=False))(
@@ -439,7 +439,7 @@ def test_z_temp_head_bounded():
     """The learned latent-temperature head (config.py z_temp_learn) is
     exactly 1 at zero-init and tanh-bounded to [1/3, 3] for ANY weights —
     lane diversity can shrink at most 3x, never collapse."""
-    from desire_tpu.models.sgm import _learned_z_temp
+    from desire.models.sgm import _learned_z_temp
     cfg = micro_cfg("unused", z_temp_learn=True, obs_len=4, pred_len=4,
                     max_num_obj=2)
     params = init_desire(jax.random.PRNGKey(0), cfg)["sgm"]
@@ -460,7 +460,7 @@ def test_track_decomposition_closed_form():
     """GT moves along +x; a pure-x prediction offset must be along-track,
     a pure-y offset cross-track; a stationary GT contributes no
     decomposable steps (weight 0)."""
-    from desire_tpu.eval.metrics import track_decomposition
+    from desire.eval.metrics import track_decomposition
     T = 4
     gt = np.zeros((1, 3, T, 2), np.float32)
     gt[0, :2, :, 0] = np.arange(T)            # agents 0,1 move along +x
@@ -596,10 +596,10 @@ def test_sigma_temperature_fit_and_corrected_coverage(env):
     assert M.coverage(u_raw, w)[0.5] < 0.45
 
     # end-to-end half: fit on the micro loader, corrected keys reported
-    from desire_tpu.eval.sampler import fit_sigma_temperature
+    from desire.eval.sampler import fit_sigma_temperature
     cfg, loader = env["cfg"], env["loader"]
     params = init_desire(jax.random.PRNGKey(0), cfg)
-    from desire_tpu.eval.sampler import _FIT_TEMPS
+    from desire.eval.sampler import _FIT_TEMPS
     tau, diag = fit_sigma_temperature(params, cfg, loader, max_batches=2)
     assert _FIT_TEMPS[0] <= tau <= _FIT_TEMPS[-1]
     cov_grid = np.asarray(diag["coverage_50"])
@@ -648,7 +648,7 @@ def test_two_param_sigma_temperature(env):
     assert abs(cov2[0.9] - 0.9) < 0.04, cov2
 
     # every scalar tau on the fit grid misses at least one level by more
-    from desire_tpu.eval.sampler import _FIT_TEMPS
+    from desire.eval.sampler import _FIT_TEMPS
     worst_best = 1e9
     for tau in _FIT_TEMPS:
         us, _ = M.pit_values(jnp.asarray(raw5), jnp.asarray(gt), sm, am,
@@ -660,7 +660,7 @@ def test_two_param_sigma_temperature(env):
 
     # end-to-end: the two-param fit runs on the micro loader and evaluate()
     # reports the pair + exact corrected coverage keys
-    from desire_tpu.eval.sampler import fit_sigma_temperature
+    from desire.eval.sampler import fit_sigma_temperature
     cfg, loader = env["cfg"], env["loader"]
     params = init_desire(jax.random.PRNGKey(0), cfg)
     pairs = ((0.2, 1.0), (0.5, 1.4), (1.0, 1.0))  # tiny grid: CPU test
@@ -680,11 +680,11 @@ def test_two_param_sigma_temperature(env):
 def test_config_absent_keys_keep_save_time_behavior():
     """ADVICE r4 (medium): a key absent from a saved config.json means the
     checkpoint PREDATES the feature — from_json must resolve it to the
-    pre-feature behavior (off), not today's default, or the orbax restore
-    template gains param leaves the saved tree lacks (z_temp_learn et al.)
+    pre-feature behavior (off), not today's default, or the checkpoint
+    restore template gains param leaves the saved tree lacks (z_temp_learn et al.)
     and every older checkpoint fails to restore."""
     import json as _json
-    from desire_tpu.config import DesireConfig, _PRE_FEATURE_DEFAULTS
+    from desire.config import DesireConfig, _PRE_FEATURE_DEFAULTS
     cfg = DesireConfig()
     d = _json.loads(cfg.to_json())
     for k in _PRE_FEATURE_DEFAULTS:
@@ -786,7 +786,7 @@ def test_stochastic_sampler_differs_from_mean(env):
 def test_rollout_long_horizon(env):
     """Autoregressive rollout (reference sample() feed-back analogue):
     chunked prediction extends the horizon; observed part is preserved."""
-    from desire_tpu.eval.sampler import make_rollout
+    from desire.eval.sampler import make_rollout
     cfg, loader = env["cfg"], env["loader"]
     params = init_desire(jax.random.PRNGKey(0), cfg)
     b = loader.materialize(3)
@@ -804,7 +804,7 @@ def test_rollout_long_horizon(env):
 
 
 def test_dump_trajectories(env, tmp_path):
-    from desire_tpu.eval.sampler import dump_trajectories
+    from desire.eval.sampler import dump_trajectories
     cfg, loader = env["cfg"], env["loader"]
     params = init_desire(jax.random.PRNGKey(0), cfg)
     path = str(tmp_path / "dump.npz")
@@ -830,7 +830,7 @@ def test_dump_trajectories(env, tmp_path):
 
 def test_dump_trajectories_bf16(env, tmp_path):
     """The dump writer's f32 cast exercised with actual bf16 outputs."""
-    from desire_tpu.eval.sampler import dump_trajectories
+    from desire.eval.sampler import dump_trajectories
     cfg, loader = env["cfg"], env["loader"]
     cfg = cfg.replace(compute_dtype="bfloat16")
     params = init_desire(jax.random.PRNGKey(0), cfg)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Training entry point — flag-compatible with the reference
 (/root/reference/train.py:24-91) plus the promoted/new flags
-(desire_tpu.config). Unlike the reference (whose train op was never wired,
+(desire.config). Unlike the reference (whose train op was never wired,
 SURVEY §8), this trains: jitted batch-level Adam steps, checkpoints with
 resume, JSONL metrics, periodic eval.
 
@@ -18,19 +18,19 @@ import sys
 import jax
 import jax.profiler  # noqa: F401  (train --profile_dir)
 
-from desire_tpu.config import DesireConfig, add_config_flags, config_from_args
-from desire_tpu.data.loader import LoaderState, SDDLoader
-from desire_tpu.eval.sampler import evaluate
-from desire_tpu.models.desire import init_desire
-from desire_tpu.parallel import mesh as mesh_mod
-from desire_tpu.train import checkpoint as ckpt_mod
-from desire_tpu.train import trainer
-from desire_tpu.train.state import create_train_state
-from desire_tpu.utils.logging import MetricLogger
+from desire.config import DesireConfig, add_config_flags, config_from_args
+from desire.data.loader import LoaderState, SDDLoader
+from desire.eval.sampler import evaluate
+from desire.models.desire import init_desire
+from desire.parallel import mesh as mesh_mod
+from desire.train import checkpoint as ckpt_mod
+from desire.train import trainer
+from desire.train.state import create_train_state
+from desire.utils.logging import MetricLogger
 
 
 def main(argv=None):
-    from desire_tpu.utils.logging import enable_compile_cache
+    from desire.utils.logging import enable_compile_cache
     enable_compile_cache()
     parser = argparse.ArgumentParser(description=__doc__)
     add_config_flags(parser)
@@ -119,10 +119,10 @@ def train(cfg: DesireConfig, resume: bool = False, eval_every: int = 1,
     state = create_train_state(cfg, params, loader.num_batches)
     if cfg.save_dir and not resume:
         # refuse to train fresh into a dir holding a DIFFERENT run's
-        # checkpoints: orbax silently keeps an existing step directory, so a
-        # colliding step number would leave a stale foreign checkpoint that
-        # later restores with a tree mismatch (or worse, silently wrong
-        # params). Same-config dirs are the auto-resume case and are fine.
+        # checkpoints: its steps would mix with this run's under retention
+        # and the latest could restore with a tree mismatch (or worse,
+        # silently wrong params). Same-config dirs are the auto-resume case
+        # and are fine.
         old = ckpt_mod.load_config(cfg.save_dir)
         if old is not None and old != cfg and \
                 ckpt_mod.CheckpointManager(cfg.save_dir).latest_step() is not None:
@@ -195,7 +195,6 @@ def train(cfg: DesireConfig, resume: bool = False, eval_every: int = 1,
             recoveries += 1
             if mgr is None or recoveries > max_recoveries:
                 raise
-            mgr.wait()
             if jax.process_count() > 1:
                 # only process 0 writes checkpoints; without a barrier a
                 # non-zero process can race its restore against process 0's
@@ -232,17 +231,9 @@ def train(cfg: DesireConfig, resume: bool = False, eval_every: int = 1,
                 pool_mgr.save(state, loader.state, cfg,
                               metrics={"minADE_px": float(ev["minADE_px"])})
         epoch += 1
-    if mgr is not None:
-        mgr.wait()
     if pool_mgr is not None:
-        pool_mgr.wait()
         _final_best_selection(cfg, pool_mgr, best_mgr, eval_loader,
                               loader.num_batches, log)
-    if best_mgr is not None:
-        # orbax saves are async: without this, an exit right after a final
-        # best-checkpoint save races interpreter shutdown ("cannot schedule
-        # new futures after interpreter shutdown") and can truncate the ckpt
-        best_mgr.wait()
     return state
 
 
@@ -284,7 +275,7 @@ def _final_best_selection(cfg, pool_mgr, best_mgr, eval_loader,
     # serving then rank with it by default (VERDICT r4 item 2)
     cfg_out = cfg
     try:
-        from desire_tpu.eval.sampler import fit_rank_blend
+        from desire.eval.sampler import fit_rank_blend
         fit_loader = SDDLoader(cfg.replace(window_hop=cfg.eval_hop),
                                split="train", drop_remainder=False)
         bl, diag = fit_rank_blend(win_state.params, cfg, fit_loader)
@@ -293,18 +284,17 @@ def _final_best_selection(cfg, pool_mgr, best_mgr, eval_loader,
     except Exception as e:  # the fit is an enhancement, never a run-killer
         log.log({"event": "rank_blend_fit", "error": str(e)})
     best_dir = os.path.join(cfg.save_dir, "best")
-    if best_mgr is not None:
-        best_mgr.wait()
     if cur == win_step:
         # same checkpoint: only the config gains the fitted blend
         with open(os.path.join(best_dir, "config.json"), "w") as f:
             f.write(cfg_out.to_json())
         return
-    # the winner differs from the running best: rewrite best/ (orbax can't
-    # save a step older than its latest, so start the dir fresh)
+    # the winner differs from the running best: rewrite best/ (keep-latest
+    # retention would drop a step older than the one there, so start the
+    # dir fresh)
     shutil.rmtree(best_dir, ignore_errors=True)
     new_best = ckpt_mod.CheckpointManager(best_dir, keep=1)
-    new_best.save(win_state, LoaderState(), cfg_out, wait=True)
+    new_best.save(win_state, LoaderState(), cfg_out)
 
 
 if __name__ == "__main__":
